@@ -1,16 +1,15 @@
-"""airdos_tpu — TPU-native stereo dynamic SLAM framework.
+"""airdos_tpu — stereo dynamic SLAM in JAX.
 
 A ground-up rebuild of the capabilities of AirDOS (haleqiu/AirDOS, ICRA 2022:
-stereo dynamic visual SLAM with articulated human trajectory optimization),
-designed TPU-first:
+stereo dynamic visual SLAM with articulated human trajectory optimization):
 
 - Host Python owns the sequential state machine (tracking states, map
   bookkeeping, covisibility graphs) — tiny, pointer-rich, latency-bound.
-- The TPU owns every dense per-frame computation (image pyramid, FAST,
-  rBRIEF descriptors, Hamming matching, stereo disparity) and every
+- The accelerator owns every dense per-frame computation (image pyramid,
+  FAST, rBRIEF descriptors, Hamming matching, stereo disparity) and every
   iterative-numeric inner loop (pose-only LM, local bundle adjustment with
   Schur complement, dynamic human-trajectory BA, vmapped RANSAC solvers)
-  as jit-compiled XLA/Pallas programs with static shapes.
+  as jit-compiled XLA programs with static shapes.
 
 Public API mirrors the reference surface (src/System.h:75-149):
 ``System``, ``track_stereo``, ``track_stereo_human``, ``shutdown``,
@@ -20,29 +19,25 @@ Public API mirrors the reference surface (src/System.h:75-149):
 __version__ = "0.1.0"
 
 import os as _os
+from pathlib import Path as _Path
 
 import jax as _jax
 
-if _os.environ.get("AIRDOS_TPU_DISABLE_COMPILE_CACHE") != "1":
-    # persistent XLA compilation cache: first compile of each program is
-    # slow (~seconds); every later process reuses it
-    try:
-        _jax.config.update("jax_compilation_cache_dir",
-                           _os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                           "/tmp/airdos_jax_cache"))
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+# Persistent XLA compilation cache.  JAX itself reads
+# JAX_COMPILATION_CACHE_DIR; only when it is unset does the package pick a
+# fixed directory inside the checkout (a path that never moves keeps the
+# cache's entries reachable from one process to the next).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        str(_Path(__file__).resolve().parent.parent / ".jax_cache"))
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
-# SLAM estimation is cancellation-heavy (Schur complements subtract
-# near-equal ~1e7-magnitude normal-equation blocks down to ~1e4).  The
-# MXU's default matmul precision (bf16 passes, ~3e-3 relative error on f32
-# contractions) makes the bundle-adjustment steps diverge, so full-f32
-# matmul precision is the framework default.  Hot image-plane kernels that
-# tolerate bf16 opt down locally via precision= / dot_general.
-try:
-    _jax.config.update("jax_default_matmul_precision", "highest")
-except Exception:
-    pass
+# Full float32 matmul precision for every contraction.  SLAM estimation is
+# cancellation-heavy: bundle adjustment's Schur complements subtract
+# near-equal ~1e7-magnitude normal-equation blocks down to ~1e4.  On the
+# GPU the default precision runs float32 matmuls in TF32 (about three
+# decimal digits), which makes those solves diverge.
+_jax.config.update("jax_default_matmul_precision", "highest")
 
 from airdos_tpu.config import SlamConfig  # noqa: F401

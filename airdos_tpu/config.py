@@ -129,8 +129,9 @@ class SchedulerConfig:
 
 @dataclasses.dataclass
 class DeviceConfig:
-    """TPU-side static-shape budgets (no analogue in the reference — these
-    bound the padded array shapes every jitted program is compiled for)."""
+    """Device-side static-shape budgets (no analogue in the reference —
+    these bound the padded array shapes every jitted program is compiled
+    for)."""
     max_keypoints: int = 2048         # padded keypoint slots per image
     max_local_kfs: int = 32           # local-BA camera window
     max_fixed_kfs: int = 32
@@ -146,8 +147,9 @@ class DeviceConfig:
     # loops, Tracking.cc:1538, LoopClosing.cc:278, become one batch)
     ransac_hypotheses: int = 256
     dtype: str = "float32"
-    # Multi-chip: >1 runs the local/global BA solves with their edge tables
-    # sharded over an ICI mesh of this many devices (parallel/sharded_ba).
+    # Multi-device: >1 runs the local/global/human BA solves with their
+    # edge tables sharded over a 1-D mesh of this many devices (on one
+    # host the cards are joined all to all by NVLink; parallel/sharded_ba).
     n_chips: int = 1
 
 

@@ -6,14 +6,14 @@ with two thresholds -> spatially distributed keypoint selection ->
 intensity-centroid orientation -> Gaussian blur -> rBRIEF descriptors ->
 coordinates rescaled to level 0.
 
-TPU-first redesign:
+Static-shape redesign:
 - FAST is a dense vectorized score map, not per-cell scalar loops.
 - The reference's quadtree distribution (DistributeOctTree,
   ORBextractor.cc:541-765) is replaced by a shape-static equivalent:
   3x3 NMS, then best-corner-per-cell on a fixed grid sized to ~2x the level
   quota, then global top-K — same spatial-spread intent, fixed shapes.
 - Orientation moments are per-keypoint patch gathers contracted with the
-  circular-moment kernels (dense single-channel convs don't tile on TPU).
+  circular-moment kernels (only the patches at keypoints are touched).
 - All levels are processed inside one jit; output is exactly n_features
   padded slots with a validity mask.
 """
@@ -204,8 +204,8 @@ class OrbExtractor:
         ang = jnp.concatenate(out_ang, axis=0)
         octv = jnp.concatenate(out_oct, axis=0)
         desc = jnp.concatenate(out_desc, axis=0)
-        # pad slot count to a multiple of 128 so the Pallas Hamming tile
-        # kernel (128-lane blocks) is eligible at every matcher call site
+        # pad the slot count to a multiple of 128: every matcher and the
+        # fused step are compiled for these padded shapes
         n = xy.shape[0]
         pad = (-n) % 128
         if pad:

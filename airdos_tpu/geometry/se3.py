@@ -7,7 +7,7 @@ g2o::SE3Quat convention used throughout the reference's solvers
 (Thirdparty/g2o types/se3quat.h): [upsilon (trans), omega (rot)].
 
 Small-angle branches use jnp.where-based Taylor guards so everything is
-differentiable and jit/vmap-safe on TPU.
+differentiable and jit/vmap-safe.
 """
 from __future__ import annotations
 

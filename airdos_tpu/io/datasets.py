@@ -24,6 +24,17 @@ from typing import List, Optional
 import numpy as np
 
 
+def _cv2():
+    """OpenCV, needed only to read and rectify real dataset images."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "reading dataset images needs OpenCV: install the 'datasets' "
+            "extra (pip install 'airdos-tpu[datasets]')") from e
+    return cv2
+
+
 def read_number_txt(path: str | Path, cols: Optional[int] = None) -> np.ndarray:
     """Whitespace matrix loader (reference: System_utils.h read_number_txt).
     Returns [0, cols] when the file is missing (same recovery as reference)."""
@@ -109,7 +120,7 @@ class TartanAirStereoSequence:
     def _imread_gray(self, path: Path) -> Optional[np.ndarray]:
         if not path.exists():
             return None
-        import cv2
+        cv2 = _cv2()
         im = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
         if im is None:
             return None
@@ -201,7 +212,7 @@ class EurocStereoSequence:
             self._build_rectify_maps(settings_yaml)
 
     def _build_rectify_maps(self, settings_yaml):
-        import cv2
+        cv2 = _cv2()
         c = read_opencv_yaml_matrices(settings_yaml)
         need = ["LEFT.K", "LEFT.D", "LEFT.R", "LEFT.P",
                 "RIGHT.K", "RIGHT.D", "RIGHT.R", "RIGHT.P"]
@@ -224,12 +235,12 @@ class EurocStereoSequence:
     def _rectify(self, im, side: int):
         if im is None or self._maps is None:
             return im
-        import cv2
+        cv2 = _cv2()
         m1, m2 = self._maps[side]
         return cv2.remap(im, m1, m2, cv2.INTER_LINEAR)
 
     def __getitem__(self, i: int) -> FrameData:
-        import cv2
+        cv2 = _cv2()
         imL = cv2.imread(str(self.root / "mav0/cam0/data" / (self.names[i] + ".png")),
                          cv2.IMREAD_GRAYSCALE)
         imR = cv2.imread(str(self.root / "mav0/cam1/data" / (self.names[i] + ".png")),

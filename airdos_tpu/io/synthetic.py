@@ -16,6 +16,7 @@ import numpy as np
 
 from airdos_tpu.config import CameraConfig, SlamConfig
 from airdos_tpu.io.datasets import FrameData
+from airdos_tpu.io.raster import draw_line, fill_circle
 
 # 18-joint AlphaPose/COCO-ish skeleton used by the reference (Map.h:48-56):
 # segment endpoints body1/body2 define the 14 rigid parts.
@@ -601,7 +602,6 @@ class SyntheticStereoWorld:
         aliased edges decorrelate the stereo views at sub-pixel disparities
         and poison descriptor matching).  return_depth also returns the
         camera-frame z-buffer (ground-truth depth map)."""
-        import cv2
         h, w = self.cam.height * ss, self.cam.width * ss
         fx, fy = self.cam.fx * ss, self.cam.fy * ss
         cx, cy = self.cam.cx * ss, self.cam.cy * ss
@@ -744,15 +744,15 @@ class SyntheticStereoWorld:
             if z[i] - 0.05 > zbuf[cvv, cu]:
                 continue
             r = max(1, int(round(min(r_px[i], 8.0))))
-            cv2.circle(img, (int(round(u[i])), int(round(v[i]))), r,
-                       float(self.intensity[i]), -1)
-            cv2.circle(img, (int(round(us[i])), int(round(vs[i]))),
-                       max(1, r // 2), float(self.sat_intensity[i]), -1)
+            fill_circle(img, (int(round(u[i])), int(round(v[i]))), r,
+                        float(self.intensity[i]))
+            fill_circle(img, (int(round(us[i])), int(round(vs[i]))),
+                        max(1, r // 2), float(self.sat_intensity[i]))
             if return_depth:
-                cv2.circle(zbuf, (int(round(u[i])), int(round(v[i]))), r,
-                           float(z[i]), -1)
-                cv2.circle(zbuf, (int(round(us[i])), int(round(vs[i]))),
-                           max(1, r // 2), float(zs[i]), -1)
+                fill_circle(zbuf, (int(round(u[i])), int(round(v[i]))), r,
+                            float(z[i]))
+                fill_circle(zbuf, (int(round(us[i])), int(round(vs[i]))),
+                            max(1, r // 2), float(zs[i]))
         # dynamic humans: textured limb capsules drawn over everything nearer
         # than the current zbuf (they occlude and carry trackable texture, so
         # an unmasked static pipeline picks up moving features — the dynamic-
@@ -762,8 +762,7 @@ class SyntheticStereoWorld:
                 p1 = (int(round(u1 * ss)), int(round(v1 * ss)))
                 p2 = (int(round(u2 * ss)), int(round(v2 * ss)))
                 mseg = np.zeros(img.shape, np.uint8)
-                cv2.line(mseg, p1, p2, 1,
-                         max(1, int(round(thick * ss))))
+                draw_line(mseg, p1, p2, 1, max(1, int(round(thick * ss))))
                 sel = (mseg > 0) & (zseg < zbuf)
                 if not sel.any():
                     continue
@@ -848,16 +847,14 @@ class SyntheticStereoWorld:
                 # silhouette-shaped seg mask: dilated limb capsules (a full
                 # bounding box blacks out far more static background than a
                 # real instance-segmentation mask would)
-                import cv2
                 for seg_im, uu, vv, zz in ((seg_l, uL, vL, zL),
                                            (seg_r, uR, vR, zR)):
                     for s in range(N_PARTS):
                         a, b = int(BODY1[s]), int(BODY2[s])
                         th_px = int(max(3, self.cam.fx * 0.12 /
                                         max(float(zz[a]), 0.5)))
-                        cv2.line(seg_im,
-                                 (int(uu[a]), int(vv[a])),
-                                 (int(uu[b]), int(vv[b])), 255, th_px)
+                        draw_line(seg_im, (int(uu[a]), int(vv[a])),
+                                  (int(uu[b]), int(vv[b])), 255, th_px)
             if hl:
                 humans_l = np.asarray(hl)
                 humans_r = np.asarray(hr)

@@ -5,7 +5,7 @@ KF<->Frame, 522-655 KF<->KF): candidates restricted to features sharing the
 same vocabulary node at the feature-grouping level, best Hamming with
 NN-ratio and rotation-histogram checks.
 
-TPU form: the node restriction is one equality mask over the dense N1 x N2
+Dense form: the node restriction is one equality mask over the dense N1 x N2
 Hamming matrix — the tree walk already produced per-feature node ids.
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from airdos_tpu.matching.projection import _resolve_unique, _rotation_consistency
-from airdos_tpu.ops.pallas_kernels import hamming_matrix_auto as hamming_matrix
+from airdos_tpu.ops.hamming import hamming_matrix
 
 TH_LOW = 50
 BIG = 1 << 10

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from airdos_tpu.ops.pallas_kernels import hamming_matrix_auto as hamming_matrix
+from airdos_tpu.ops.hamming import hamming_matrix
 
 TH_HIGH = 100
 TH_LOW = 50

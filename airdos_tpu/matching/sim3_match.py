@@ -7,7 +7,7 @@ scale-predicted window (th = 7.5 * scale[level]), taking the best Hamming
 match under TH_HIGH in each direction, and keeping only mutually-agreeing
 pairs that are not already matched.
 
-TPU form: the per-feature point tables of both keyframes are projected in
+Dense form: the per-feature point tables of both keyframes are projected in
 one shot; the two direction searches are two masked dense Hamming problems;
 mutual agreement is a gather-compare.
 """
@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from airdos_tpu.ops.pallas_kernels import hamming_matrix_auto as hamming_matrix
+from airdos_tpu.ops.hamming import hamming_matrix
 
 TH_HIGH = 100
 BIG = 1 << 10

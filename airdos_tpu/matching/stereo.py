@@ -10,19 +10,18 @@ src/Frame.cc:829-1003):
    *unblurred* pyramid images at the left keypoint's level, parabola fit,
 4. median-based outlier cut: reject SAD >= 1.5 * 1.4 * median.
 
-TPU redesign: step 1-2 are one dense masked Hamming matrix (VPU popcounts)
-instead of per-row candidate lists; step 3 gathers all windows at once; the
-whole thing is a single jit program with static shapes.
+Batched redesign: steps 1-2 are one dense masked Hamming matrix instead of
+per-row candidate lists; step 3 gathers all windows at once; the whole
+thing is a single jit program with static shapes.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence, Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from airdos_tpu.ops.pallas_kernels import hamming_matrix_auto as hamming_matrix
+from airdos_tpu.ops.hamming import hamming_matrix
 
 TH_HIGH = 100
 TH_LOW = 50
@@ -42,40 +41,13 @@ def stack_pyramid(images: Sequence[jnp.ndarray]) -> jnp.ndarray:
     return jnp.stack(out, axis=0)
 
 
-def _sad_windows_gather(pyr_l, pyr_r, oct_l, gy, gxl, gxr):
-    """CPU lowering: direct [N, 11, 11/21] window gathers."""
+def sad_windows(pyr_l, pyr_r, oct_l, gy, gxl, gxr):
+    """The [N, 11, 11] left patches and [N, 11, 21] right strips of the SAD
+    search, gathered from each keypoint's level of the [L, H, W] stacks.
+    gy, gxl, gxr: [N, 11] / [N, 11] / [N, 21] in-array coordinates."""
     lvl = oct_l[:, None, None]
     patch_l = pyr_l[lvl, gy[:, :, None], gxl[:, None, :]]        # [N,11,11]
     strip_r = pyr_r[lvl, gy[:, :, None], gxr[:, None, :]]        # [N,11,21]
-    return patch_l, strip_r
-
-
-def _sad_windows_onehot(pyr_l, pyr_r, oct_l, gy, gxl, gxr):
-    """TPU lowering: XLA lowers the [N, 11, 11/21] window gathers to
-    per-element scalar gathers (~4.5 ms/frame on v5e).  Select the 11
-    window rows of BOTH images with one one-hot matmul against the
-    level-flattened pyramid stacks, then cut the column windows with
-    per-slot one-hot contractions — all MXU, zero gathers, numerically
-    identical (a one-hot f32 matmul is exact selection)."""
-    L, h0, w0 = pyr_l.shape
-    N = oct_l.shape[0]
-    WL = 2 * SAD_W + 1                                           # 11
-    WR = 2 * (SAD_W + SAD_L) + 1                                 # 21
-    flat = jnp.concatenate([pyr_l.reshape(L * h0, w0),
-                            pyr_r.reshape(L * h0, w0)], axis=1)
-    rowi = (jnp.clip(oct_l, 0, L - 1) * h0)[:, None] + gy        # [N, 11]
-    hh = jax.lax.broadcasted_iota(jnp.int32, (N * WL, L * h0), 1)
-    onehot = (hh == rowi.reshape(-1)[:, None]).astype(flat.dtype)
-    rows = (onehot @ flat).reshape(N, WL, 2 * w0)
-    rows_l, rows_r = rows[:, :, :w0], rows[:, :, w0:]
-    ww_l = jax.lax.broadcasted_iota(jnp.int32, (N, w0, WL), 1)
-    csel_l = (ww_l == gxl[:, None, :]).astype(flat.dtype)
-    patch_l = jnp.einsum("niw,nwc->nic", rows_l, csel_l,
-                         preferred_element_type=jnp.float32)
-    ww_r = jax.lax.broadcasted_iota(jnp.int32, (N, w0, WR), 1)
-    csel_r = (ww_r == gxr[:, None, :]).astype(flat.dtype)
-    strip_r = jnp.einsum("niw,nwc->nic", rows_r, csel_r,
-                         preferred_element_type=jnp.float32)
     return patch_l, strip_r
 
 
@@ -148,12 +120,7 @@ def stereo_match(xy_l: jnp.ndarray, oct_l: jnp.ndarray, desc_l: jnp.ndarray,
     gxl = jnp.clip(su_l[:, None] + dxl[None, :], 0, w0 - 1)          # [N, 11]
     gxr = jnp.clip(su_r0[:, None] + dxr[None, :], 0, w0 - 1)         # [N, 21]
 
-    if jax.default_backend() == "cpu":
-        patch_l, strip_r = _sad_windows_gather(pyr_l, pyr_r, oct_l,
-                                               gy, gxl, gxr)
-    else:
-        patch_l, strip_r = _sad_windows_onehot(pyr_l, pyr_r, oct_l,
-                                               gy, gxl, gxr)
+    patch_l, strip_r = sad_windows(pyr_l, pyr_r, oct_l, gy, gxl, gxr)
 
     patch_l = patch_l - patch_l[:, SAD_W:SAD_W + 1, SAD_W:SAD_W + 1]
     # windows for each shift inc in [-L, L]: strip[:, :, inc+L : inc+L+11]

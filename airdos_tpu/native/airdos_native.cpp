@@ -1,6 +1,6 @@
 // airdos_native — C++ host runtime for the map-bookkeeping hot paths.
 //
-// The reference's runtime is C++ end to end (ORB-SLAM2 fork); in the TPU
+// The reference's runtime is C++ end to end (ORB-SLAM2 fork); in this
 // rebuild the device owns all dense math, and this module owns the
 // integer/bit host work that Python is slow at:
 //   - distinctive_descriptor: min-median-Hamming over a point's

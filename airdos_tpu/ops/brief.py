@@ -5,16 +5,16 @@ Uses the standard learned ORB sampling pattern (the public 256-pair
 orb_pattern.npy) so descriptors are bit-compatible with the reference's
 computeOrbDescriptor (ORBextractor.cc:109-148) and with cv2.ORB.
 
-TPU formulation: rotate all 512 pattern points for all N keypoints at once,
-gather the blurred level image at the N x 512 sample locations, compare the
-256 pairs, and pack bits — one fused gather + compare + pack, no loops.
+Batched formulation: rotate all 512 pattern points for all N keypoints at
+once, gather the blurred level image at the N x 512 sample locations,
+compare the 256 pairs, and pack bits — one fused gather + compare + pack,
+no loops.
 """
 from __future__ import annotations
 
 import functools
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -23,16 +23,6 @@ import numpy as np
 def load_pattern() -> np.ndarray:
     """[256, 4] int32: (x0, y0, x1, y1) per descriptor bit."""
     return np.load(Path(__file__).parent / "orb_pattern.npy")
-
-
-@functools.lru_cache(maxsize=1)
-def _pattern_radius() -> int:
-    """Max radius of any (rotated) sample point: rotation preserves norm,
-    so ceil(max ||p||) bounds every rounded rotated offset."""
-    pat = load_pattern().astype(np.float64)
-    r = np.sqrt(np.maximum(pat[:, 0] ** 2 + pat[:, 1] ** 2,
-                           pat[:, 2] ** 2 + pat[:, 3] ** 2)).max()
-    return int(np.ceil(r))
 
 
 def compute_descriptors(img_blur: jnp.ndarray,
@@ -55,16 +45,11 @@ def compute_descriptors(img_blur: jnp.ndarray,
     dx = jnp.round(px[None, :] * ca[:, None] - py[None, :] * sa[:, None]).astype(jnp.int32)
     dy = jnp.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None]).astype(jnp.int32)
 
+    # gather the N x 512 rotated samples, clipped to the image edge
     h, w = img_blur.shape
-    win_sz = 2 * _pattern_radius() + 1
-    if jax.default_backend() == "cpu" or h < win_sz or w < win_sz:
-        # gather path: also the safe fallback for pyramid levels smaller
-        # than the one-hot window — there jnp.clip(ys - R, 0, h - win_sz)
-        # would silently return the NEGATIVE upper bound and every one-hot
-        # row would match nothing (all-zero descriptors)
-        vals = _samples_gather(img_blur, xs, ys, dx, dy)
-    else:
-        vals = _samples_onehot(img_blur, xs, ys, dx, dy)
+    gx = jnp.clip(xs[:, None] + dx, 0, w - 1)      # [N, 512]
+    gy = jnp.clip(ys[:, None] + dy, 0, h - 1)
+    vals = img_blur[gy, gx]                        # [N, 512]
 
     t0 = vals[:, :256]
     t1 = vals[:, 256:]
@@ -74,50 +59,6 @@ def compute_descriptors(img_blur: jnp.ndarray,
     bits = bits.reshape(-1, 32, 8)
     shifts = jnp.asarray([1 << k for k in range(8)], jnp.uint8)
     return jnp.sum(bits * shifts[None, None, :], axis=-1).astype(jnp.uint8)
-
-
-def _samples_gather(img_blur, xs, ys, dx, dy):
-    """CPU lowering: a 2-D gather at the N x 512 rotated sample points
-    (pointer-chasing gathers are what CPUs are good at)."""
-    h, w = img_blur.shape
-    gx = jnp.clip(xs[:, None] + dx, 0, w - 1)      # [N, 512]
-    gy = jnp.clip(ys[:, None] + dy, 0, h - 1)
-    return img_blur[gy, gx]                        # [N, 512]
-
-
-def _samples_onehot(img_blur, xs, ys, dx, dy):
-    """TPU lowering: XLA turns the 2-D gather into per-element scalar
-    gathers (~9 ms/frame on v5e across levels).  Instead cut the
-    (2R+1)^2 window around each keypoint with two one-hot matmuls
-    (rows from the image, then a column window), and resolve the
-    512 rotated samples inside the window with one-hot contractions
-    — everything lands on the MXU, zero gathers.  Bit-exact vs the
-    gather path (tests/test_frontend.py::test_onehot_parity)."""
-    h, w = img_blur.shape
-    R = _pattern_radius()
-    win_sz = 2 * R + 1
-    n = xs.shape[0]
-    y0 = jnp.clip(ys - R, 0, h - win_sz)
-    x0 = jnp.clip(xs - R, 0, w - win_sz)
-    hh = jax.lax.broadcasted_iota(jnp.int32, (n * win_sz, h), 1)
-    rbase = (y0[:, None] + jnp.arange(win_sz)[None, :]).reshape(-1)
-    rows = ((hh == rbase[:, None]).astype(img_blur.dtype)
-            @ img_blur).reshape(n, win_sz, w)                # [N,S,W]
-    ww = jax.lax.broadcasted_iota(jnp.int32, (n, w, win_sz), 1)
-    cc = jax.lax.broadcasted_iota(jnp.int32, (n, w, win_sz), 2)
-    colsel = (ww == x0[:, None, None] + cc).astype(img_blur.dtype)
-    win = jnp.einsum("nrw,nwc->nrc", rows, colsel,
-                     preferred_element_type=jnp.float32)     # [N,S,S]
-    # clamp into the window == the gather path's clip-to-image-edge
-    # (window edge IS the image edge exactly when clipping engages)
-    ry = jnp.clip(ys[:, None] + dy - y0[:, None], 0, win_sz - 1)
-    rx = jnp.clip(xs[:, None] + dx - x0[:, None], 0, win_sz - 1)
-    rr = jax.lax.broadcasted_iota(jnp.int32, (n, 512, win_sz), 2)
-    eqr = (rr == ry[:, :, None]).astype(img_blur.dtype)
-    eqc = (rr == rx[:, :, None]).astype(img_blur.dtype)
-    tmp = jnp.einsum("nrc,nsc->nsr", win, eqc,
-                     preferred_element_type=jnp.float32)     # [N,512,S]
-    return jnp.sum(tmp * eqr, axis=2)                        # [N, 512]
 
 
 def pack_u32(desc_u8: jnp.ndarray) -> jnp.ndarray:

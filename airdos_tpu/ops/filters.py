@@ -1,4 +1,4 @@
-"""Basic image filters as XLA convolutions (MXU/VPU-friendly).
+"""Basic image filters in XLA.
 
 Covers the reference's OpenCV filter usage: GaussianBlur(7,7,sigma=2) before
 descriptor extraction (ORBextractor.cc:1105), 10x10 erosion of segmentation
@@ -52,9 +52,8 @@ def gaussian_blur7(img: jnp.ndarray, sigma: float = 2.0) -> jnp.ndarray:
     """Separable 7x7 Gaussian blur, BORDER_REFLECT_101 like the reference's
     cv::GaussianBlur(image, 7, 7, 2, 2, BORDER_REFLECT_101).
 
-    Implemented as shift-and-add (7 fused multiply-adds per axis on the
-    VPU) instead of lax.conv: single-channel convolutions don't tile onto
-    the MXU and fall to a slow path on TPU."""
+    Implemented as shift-and-add (7 fused multiply-adds per axis) instead
+    of a single-channel lax.conv."""
     k = _gauss_kernel1d(7, sigma)
     h, w = img.shape
     p = jnp.pad(img, ((0, 0), (3, 3)), mode="reflect")

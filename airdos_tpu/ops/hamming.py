@@ -2,8 +2,10 @@
 
 Replaces the reference's scalar 8x32-bit popcount loop
 (ORBmatcher.cc:1647-1663, DescriptorDistance) with dense popcount matrices:
-all candidate pairs at once on the VPU.  Distances are in [0, 256];
-invalid descriptors should be pre-masked by the caller.
+all candidate pairs at once; XLA fuses xor -> popcount -> sum into one
+loop, so the [N, M, 8] intermediate never reaches device memory.
+Distances are in [0, 256]; invalid descriptors should be pre-masked by
+the caller.
 """
 from __future__ import annotations
 

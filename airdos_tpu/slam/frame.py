@@ -84,7 +84,7 @@ class FrontEnd:
         return imL, imR, maskL, maskR
 
     def prefetch(self, data):
-        """Start the next frame's uploads early so the ~30 ms/image
+        """Start the next frame's uploads early so the host-to-device
         transfer overlaps the current frame's device compute (the
         reference's IO thread reads images ahead; here the copy engine is
         the overlap axis).  Only the newest prefetch is kept."""

@@ -290,7 +290,7 @@ class System:
 
     def prefetch(self, data: FrameData):
         """Begin the async device upload of a FUTURE frame's images so the
-        ~30 ms/image transfer overlaps the current frame's compute — call
+        transfer overlaps the current frame's compute — call
         with frame i+1 before (or while) tracking frame i."""
         if data.image_left.ndim == 3 or data.image_right.ndim == 3:
             import dataclasses as _dc

@@ -667,7 +667,7 @@ class Tracking:
         if <50 inliers -> re-opt -> narrow 3px/ORBdist 64 expansion if still
         30..50 -> accept only with >=50 inliers."""
         from airdos_tpu.solvers.epnp import epnp_ransac
-        # multi-chip: hypothesis-parallel RANSAC over the ICI mesh
+        # multi-device: hypothesis-parallel RANSAC over the device mesh
         # (identical protocol/result; SURVEY §2c scaling axis)
         if self.config.device.n_chips > 1 and self._sharded_pnp is None:
             from airdos_tpu.parallel.sharded_ba import (make_mesh,

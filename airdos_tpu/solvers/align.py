@@ -3,7 +3,7 @@
 Core of the reference's Sim3Solver (src/Sim3Solver.cc:226-365, quaternion
 from the 4x4 N-matrix eigenvector, symmetric-ratio scale) and of EPnP's
 final R, t recovery.  All ops batch over leading axes so RANSAC hypotheses
-vmap onto the VPU/MXU.
+vmap into one batched program.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ with Gauss-Newton refinement on the 6 control-point distances, and Horn
 R, t recovery; RANSAC with per-scale chi2 inlier thresholds
 (mvMaxError[octave] = 5.991 * sigma2, parameters from Tracking.cc:1538).
 
-TPU form: hypotheses are one leading batch axis — hundreds of EPnP solves
+Batched form: hypotheses are one leading batch axis — hundreds of EPnP solves
 (eigen-decompositions, GN iterations, Horn alignments) execute as one
 vmapped program; inlier counting is a dense masked reduction.
 """

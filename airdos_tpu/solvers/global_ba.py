@@ -5,7 +5,7 @@ Behavioral rebuild of Optimizer::BundleAdjustment / GlobalBundleAdjustemnt
 live map point, stereo/mono projection edges, Huber phase then a polish
 phase with chi2-gated outliers, write-back of all poses and points.
 
-TPU-first design (replaces g2o's sparse Cholesky):
+Design (replaces g2o's sparse Cholesky):
 - The dense-Schur local solver (solvers/local_ba.py) materialises the
   per-point camera coupling [P, C, 6, 3]; at map scale (hundreds of KFs,
   10^5 points) that array and the C^2 Schur product are infeasible.
@@ -17,7 +17,7 @@ TPU-first design (replaces g2o's sparse Cholesky):
 - Memory is O(E + P + C); compute per CG step is O(E) fused einsums.
 - Multi-chip: pass ``axis_name`` under shard_map with edge tables sharded;
   every edge reduction (scatters into C/P tables, CG dot products) is
-  psum-reduced over ICI and the CG state stays replicated.
+  psum-reduced over the mesh and the CG state stays replicated.
 """
 from __future__ import annotations
 

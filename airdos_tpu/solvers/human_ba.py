@@ -21,11 +21,11 @@ Protocol: phase-1 iterations with Huber -> chi-square deactivation
 robust kernels -> outlier flags written back (bIsLost / bIsBad /
 bOptimized semantics, Optimizer.cc:2076-2166).
 
-TPU-first design: static landmarks are Schur-marginalised with 3x3 block
+Design: static landmarks are Schur-marginalised with 3x3 block
 inverses (segment-sums); cameras + joints + limb lengths + motions form one
 dense reduced system assembled by generic block-scatter of per-edge
-J^T W J outer products — a few-thousand-dim dense solve that maps straight
-onto the MXU, replacing g2o's BlockSolverX + dense Cholesky.
+J^T W J outer products — a few-thousand-dim dense solve, replacing g2o's
+BlockSolverX + dense Cholesky.
 """
 from __future__ import annotations
 

@@ -6,10 +6,10 @@ observer keyframes, stereo/mono projection edges, 5+10 LM iterations with a
 chi-square outlier pass in between (5.991 mono / 7.815 stereo), Huber
 kernel, outlier observations erased on write-back.
 
-TPU-first design (replaces g2o's sparse CSparse/Eigen solve):
+Design (replaces g2o's sparse CSparse/Eigen solve):
 - The graph is three padded edge-table arrays (cam_idx, pt_idx, obs).
 - Residuals/Jacobians evaluated for ALL edges at once (vmapped analytic
-  forms on the VPU/MXU).
+  forms).
 - Gauss-Newton normal equations are reduced by marginalising every 3x3
   landmark block (Schur complement) via segment-sums; the reduced camera
   system (6C x 6C, C <= ~48) is solved densely on device.

@@ -8,9 +8,9 @@ relative-Sim3 measurements from the poses at graph-build time; 20 LM
 iterations.  Map points are corrected afterwards via their reference KF
 (done by the caller).
 
-TPU form: per-edge residual e = log_sim3(S_meas_ji * S_i * S_j^-1) with
+Dense form: per-edge residual e = log_sim3(S_meas_ji * S_i * S_j^-1) with
 autodiff Jacobians (vmapped jacfwd over the two 7-dim perturbations); the
-H/b system is scatter-assembled dense (7K x 7K) and solved on the MXU.
+H/b system is scatter-assembled dense (7K x 7K) and solved in one program.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ projection edges with fixed world points, 4 rounds x 10 LM iterations,
 chi-square gating (5.991 mono / 7.815 stereo) re-classifying outliers
 between rounds, Huber kernel dropped from round 3 on.
 
-TPU redesign: edges live in fixed-size padded arrays; residuals/Jacobians
+Static-shape redesign: edges live in fixed-size padded arrays; residuals/Jacobians
 are analytic and vmapped; each round is a lax.fori_loop of damped
 Gauss-Newton steps on a 6x6 system solved in-register.  The whole
 4-round protocol is one jit.

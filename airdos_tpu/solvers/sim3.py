@@ -7,7 +7,7 @@
   edges and inlier re-check — rebuild of Optimizer::OptimizeSim3
   (src/Optimizer.cc:2474-2660).
 
-Hypotheses batch over the leading axis (vmapped Horn + eigh on the MXU).
+Hypotheses batch over the leading axis (vmapped Horn + eigh).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Offline map/trajectory viewer (reference: Viewer/MapDrawer/FrameDrawer,
-Pangolin-based).  TPU rebuild keeps visualization entirely off the hot
+Pangolin-based).  This rebuild keeps visualization entirely off the hot
 path: state snapshots accumulate cheaply per frame; rendering happens via
 matplotlib on demand (save_map_figure) or not at all.
 """

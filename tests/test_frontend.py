@@ -121,7 +121,7 @@ def test_orb_extractor_end_to_end(rng):
     img = textured_image(rng, 360, 640).astype(np.float32)
     ext = OrbExtractor(n_features=500, n_levels=4)
     feats = ext(jnp.asarray(img))
-    assert feats.n_slots == 512        # padded to a 128 multiple (Pallas)
+    assert feats.n_slots == 512        # padded to a multiple of 128
     assert int(feats.valid.sum()) <= 500
     valid = np.asarray(feats.valid)
     assert valid.sum() > 300
@@ -150,55 +150,64 @@ def test_orb_extractor_mask(rng):
     assert valid.sum() > 50
 
 
-def test_onehot_lowerings_match_gather(rng):
-    """The TPU one-hot MXU lowerings (zero-gather patch ops) must be
-    numerically equivalent to the CPU gather lowerings: descriptors
-    bit-exact, angles within f32 reduction noise, SAD windows exact."""
-    from airdos_tpu.ops.orientation import _angles_gather, _angles_onehot
-    from airdos_tpu.ops.brief import (_pattern_radius, _samples_gather,
-                                      _samples_onehot)
-    from airdos_tpu.matching.stereo import (_sad_windows_gather,
-                                            _sad_windows_onehot)
+@pytest.mark.parametrize("n, m", [(1, 1), (7, 300), (129, 5), (256, 256),
+                                  (1000, 77)])
+def test_hamming_matrix_matches_numpy_popcount(n, m):
+    from airdos_tpu.ops import reference
+    rng = np.random.default_rng(n * 1000 + m)
+    a = rng.integers(0, 1 << 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 1 << 32, (m, 8), dtype=np.uint64).astype(np.uint32)
+    D = np.asarray(hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+    assert D.shape == (n, m) and D.dtype == np.int32
+    np.testing.assert_array_equal(D, reference.hamming_matrix(a, b))
 
-    h, w, n = 120, 160, 64
-    img = jnp.asarray(textured_image(rng, h, w).astype(np.float32))
-    # include keypoints at the extractor border (16 px) where clipping
-    # engages for rotated BRIEF samples (pattern radius > 16)
+
+def _border_keypoints(rng, h, w, n):
+    """Random keypoints plus the four extractor-border corners, where the
+    rotated BRIEF samples (radius > 16) clip at the image edge."""
     xs = np.concatenate([rng.integers(16, w - 16, n - 4),
                          [16, w - 17, 16, w - 17]]).astype(np.int32)
     ys = np.concatenate([rng.integers(16, h - 16, n - 4),
                          [16, 16, h - 17, h - 17]]).astype(np.int32)
-    xs_j, ys_j = jnp.asarray(xs), jnp.asarray(ys)
+    return xs, ys
 
-    a_g = np.asarray(_angles_gather(img, xs_j, ys_j))
-    a_o = np.asarray(_angles_onehot(img, xs_j, ys_j))
-    dd = np.abs(((a_g - a_o) + 180.0) % 360.0 - 180.0)
-    assert dd.max() < 0.1
 
-    ang = jnp.asarray(rng.uniform(0, 360, n).astype(np.float32))
-    pat = jnp.asarray(load_pattern())
-    px = jnp.concatenate([pat[:, 0], pat[:, 2]])
-    py = jnp.concatenate([pat[:, 1], pat[:, 3]])
-    ar = jnp.radians(ang)
-    ca, sa = jnp.cos(ar), jnp.sin(ar)
-    dx = jnp.round(px[None] * ca[:, None] - py[None] * sa[:, None]).astype(jnp.int32)
-    dy = jnp.round(px[None] * sa[:, None] + py[None] * ca[:, None]).astype(jnp.int32)
-    v_g = np.asarray(_samples_gather(img, xs_j, ys_j, dx, dy))
-    v_o = np.asarray(_samples_onehot(img, xs_j, ys_j, dx, dy))
-    assert (v_g == v_o).all()     # exact selection -> bit-exact descriptors
+def test_gather_ops_match_numpy_reference(rng):
+    """The device front-end ops against the plain numpy references:
+    descriptors bit-exact given the same angles (rounding ties excluded),
+    angles within float32 noise, SAD windows exact."""
+    from airdos_tpu.matching.stereo import SAD_L, SAD_W, sad_windows
+    from airdos_tpu.ops import reference
+    from airdos_tpu.ops.orientation import keypoint_angles
 
-    # SAD windows over a 3-level stack
-    from airdos_tpu.matching.stereo import SAD_W, SAD_L
+    h, w, n = 120, 160, 64
+    img = textured_image(rng, h, w).astype(np.float32)
+    xs, ys = _border_keypoints(rng, h, w, n)
+    ang = np.asarray(keypoint_angles(jnp.asarray(img), jnp.asarray(xs),
+                                     jnp.asarray(ys)))
+    want = reference.ic_angles(img, xs, ys)
+    assert np.abs((ang - want + 180.0) % 360.0 - 180.0).max() < 1e-3
+
+    blurred = np.asarray(gaussian_blur7(jnp.asarray(img)))
+    angs = rng.uniform(0, 360, n).astype(np.float32)
+    desc = np.asarray(compute_descriptors(jnp.asarray(blurred),
+                                          jnp.asarray(xs), jnp.asarray(ys),
+                                          jnp.asarray(angs)))
+    ref_desc, tie = reference.brief_descriptors(blurred, xs, ys, angs)
+    assert tie.sum() < 4
+    np.testing.assert_array_equal(desc[~tie], ref_desc[~tie])
+
     L = 3
-    pyr_l = jnp.asarray(rng.uniform(0, 255, (L, h, w)).astype(np.float32))
-    pyr_r = jnp.asarray(rng.uniform(0, 255, (L, h, w)).astype(np.float32))
-    oct_l = jnp.asarray(rng.integers(0, L, n).astype(np.int32))
-    dyw = jnp.arange(-SAD_W, SAD_W + 1)
-    dxr = jnp.arange(-SAD_W - SAD_L, SAD_W + SAD_L + 1)
-    gy = jnp.clip(ys_j[:, None] + dyw[None], 0, h - 1)
-    gxl = jnp.clip(xs_j[:, None] + dyw[None], 0, w - 1)
-    gxr = jnp.clip(xs_j[:, None] + dxr[None], 0, w - 1)
-    p_g, s_g = _sad_windows_gather(pyr_l, pyr_r, oct_l, gy, gxl, gxr)
-    p_o, s_o = _sad_windows_onehot(pyr_l, pyr_r, oct_l, gy, gxl, gxr)
-    assert (np.asarray(p_g) == np.asarray(p_o)).all()
-    assert (np.asarray(s_g) == np.asarray(s_o)).all()
+    pyr_l = rng.uniform(0, 255, (L, h, w)).astype(np.float32)
+    pyr_r = rng.uniform(0, 255, (L, h, w)).astype(np.float32)
+    oct_l = rng.integers(0, L, n).astype(np.int32)
+    dyw = np.arange(-SAD_W, SAD_W + 1)
+    dxr = np.arange(-SAD_W - SAD_L, SAD_W + SAD_L + 1)
+    gy = np.clip(ys[:, None] + dyw[None], 0, h - 1)
+    gxl = np.clip(xs[:, None] + dyw[None], 0, w - 1)
+    gxr = np.clip(xs[:, None] + dxr[None], 0, w - 1)
+    got = sad_windows(*(jnp.asarray(v) for v in
+                        (pyr_l, pyr_r, oct_l, gy, gxl, gxr)))
+    for g, r in zip(got, reference.sad_windows(pyr_l, pyr_r, oct_l, gy,
+                                               gxl, gxr)):
+        np.testing.assert_array_equal(np.asarray(g), r)

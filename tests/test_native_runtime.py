@@ -7,9 +7,6 @@ the batched entry point against both the per-point native function and an
 independent numpy reference, and the SlamMap wrapper against the fallback.
 """
 import numpy as np
-import pytest
-
-nat = pytest.importorskip("airdos_tpu.native.airdos_native")
 
 
 def _numpy_distinctive(D_u8):
@@ -20,7 +17,8 @@ def _numpy_distinctive(D_u8):
     return int(np.argmin(med))
 
 
-def test_batched_distinctive_matches_per_point(rng):
+def test_batched_distinctive_matches_per_point(rng, native_ext):
+    nat = native_ext
     sizes = [5, 1, 9, 2, 17]
     D = rng.integers(0, 256, (sum(sizes), 32)).astype(np.uint8)
     off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
@@ -31,18 +29,20 @@ def test_batched_distinctive_matches_per_point(rng):
         assert idx[k] == lo + _numpy_distinctive(block)
 
 
-def test_batched_distinctive_empty_block():
+def test_batched_distinctive_empty_block(native_ext):
+    nat = native_ext
     D = np.zeros((3, 32), np.uint8)
     off = np.asarray([0, 3, 3], np.int64)   # second point has no obs
     idx = nat.distinctive_descriptors_batch(np.ascontiguousarray(D), off)
     assert idx[1] == -1 and idx[0] >= 0
 
 
-def test_map_batched_wrapper_matches_fallback(rng):
+def test_map_batched_wrapper_matches_fallback(rng, native_ext, monkeypatch):
     """SlamMap.update_point_descriptors == per-point update_point_descriptor
     on the same map state."""
     from airdos_tpu.slam import map as map_mod
     from airdos_tpu.slam.map import SlamMap, KeyFrame
+    monkeypatch.setattr(map_mod, "_native", native_ext)
 
     class _Frame:
         def __init__(self, idx, n):
